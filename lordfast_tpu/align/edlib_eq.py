@@ -12,7 +12,7 @@ are transcriptions of the reference's scalar ksw.c loops (ksw.c:380-479
 and :504-606 respectively) — kept deliberately close because their job
 is bit-exact oracle semantics, including int-truncation and the
 direction-bit conventions of the BAM CIGAR builder.  The device kernels
-(ops/affine_pl.py, ops/gap_dp_pallas.py) are original TPU-first designs.
+(ops/affine_pl.py, ops/gap_dp_pallas.py) are original designs.
 """
 
 from __future__ import annotations
@@ -134,13 +134,17 @@ def shw_path(q: np.ndarray, t: np.ndarray):
 
 
 def ksw_extend2(
-    q, t, mat5, o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop, h0
+    q, t, mat5, o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop, h0,
+    with_max_off=False,
 ):
-    """ksw_extend2 equivalent; returns (score, qle, tle, gtle, gscore)."""
+    """ksw_extend2 equivalent; returns (score, qle, tle, gtle, gscore),
+    plus max_off with `with_max_off` (native library only)."""
     q, t = _as_u8(q), _as_u8(t)
     mat = np.ascontiguousarray(mat5, dtype=np.int8)
     lib = _load()
     if lib is None:
+        if with_max_off:
+            raise RuntimeError("max_off needs the native library")
         return _ksw_extend2_np(
             q, t, mat, o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop, h0
         )
@@ -157,7 +161,9 @@ def ksw_extend2(
         ctypes.byref(qle), ctypes.byref(tle), ctypes.byref(gtle),
         ctypes.byref(gscore), ctypes.byref(max_off),
     )
-    return int(sc), int(qle.value), int(tle.value), int(gtle.value), int(gscore.value)
+    out = (int(sc), int(qle.value), int(tle.value), int(gtle.value),
+           int(gscore.value))
+    return out + (int(max_off.value),) if with_max_off else out
 
 
 def _ksw_extend2_np(q, t, mat, o_del, e_del, o_ins, e_ins, w, end_bonus,

@@ -16,7 +16,7 @@ from .config import ChainAlg, LordfastConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="lordfast-tpu",
-        description="TPU-native long-read aligner (lordFAST capabilities)",
+        description="long-read aligner on JAX (lordFAST capabilities)",
     )
     p.add_argument("--index", "-I", metavar="REF", help="build index for REF")
     p.add_argument("--search", "-S", metavar="REF", help="map reads against REF")
@@ -35,7 +35,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chainPenalty", "-p", type=float, default=11.4)
     p.add_argument("--gapPenalty", "-g", type=float, default=0.15)
     p.add_argument("--version", "-v", action="store_true")
-    # ---- TPU-build additions (aux subsystems, SURVEY.md §5) ----
+    # ---- additions beyond the reference (aux subsystems, SURVEY.md §5) ----
     p.add_argument("--resume", action="store_true",
                    help="resume an interrupted --search run at the last "
                         "completed chunk (requires --out)")
@@ -46,12 +46,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shardIndex", action="store_true",
                    help="stripe the FM-index over all devices with routed "
                         "lookups instead of replicating it (for indexes "
-                        "too big for one chip's HBM; SURVEY.md §5.8)")
-    # ---- multi-host (DCN) flags (parallel/multihost.py) ----
+                        "too big for one device's memory; SURVEY.md §5.8)")
+    # ---- multi-process flags (parallel/multihost.py) ----
     p.add_argument("--numProcesses", type=int, default=1,
-                   help="total mapping processes (hosts); this process "
-                        "maps chunks with id %% numProcesses == "
-                        "processIndex and writes <out>.part<i>")
+                   help="total mapping processes on this host, one per "
+                        "card: process i opens card i, maps chunks with "
+                        "id %% numProcesses == i and writes <out>.part<i>")
     p.add_argument("--processIndex", type=int, default=-1,
                    help="this process's index (default: $LORDFAST_PROCESS_"
                         "INDEX or 0)")
@@ -185,6 +185,24 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
 
+    # ---- multi-process setup (parallel/multihost.py), before anything
+    # starts the JAX backend: each process opens only its own card ----
+    import os as _os
+
+    num_procs = max(1, args.numProcesses)
+    proc_idx = (args.processIndex if args.processIndex >= 0
+                else int(_os.environ.get("LORDFAST_PROCESS_INDEX", "0")))
+    out_path = args.out
+    if num_procs > 1:
+        if not args.out:
+            print("[ERROR] --numProcesses requires --out (per-process "
+                  "shard files)", file=sys.stderr)
+            return 1
+        from .parallel.multihost import maybe_init_distributed, shard_path
+
+        maybe_init_distributed(args.coordinator, num_procs, proc_idx)
+        out_path = shard_path(args.out, proc_idx)
+
     from .index.builder import (build_index, index_path_for, load_index,
                                 save_index)
     from .pipeline.engine import MappingEngine
@@ -206,23 +224,6 @@ def main(argv=None) -> int:
                   f"building", file=sys.stderr)
             idx = build_index(args.search, cfg)
             save_index(idx, ipath)
-
-    # ---- multi-host setup (parallel/multihost.py) ----
-    import os as _os
-
-    num_procs = max(1, args.numProcesses)
-    proc_idx = (args.processIndex if args.processIndex >= 0
-                else int(_os.environ.get("LORDFAST_PROCESS_INDEX", "0")))
-    out_path = args.out
-    if num_procs > 1:
-        if not args.out:
-            print("[ERROR] --numProcesses requires --out (per-host shard "
-                  "files)", file=sys.stderr)
-            return 1
-        from .parallel.multihost import maybe_init_distributed, shard_path
-
-        maybe_init_distributed(args.coordinator, num_procs, proc_idx)
-        out_path = shard_path(args.out, proc_idx)
 
     if args.shardIndex:
         import jax

@@ -23,7 +23,7 @@
 // statement: its job is to be a bit-exact host oracle for that function
 // (including the (int)((double)...+1.) band truncation and the z-drop /
 // interval-shrink timing), and any faithful implementation converges to
-// that ~100-line loop.  The TPU compute path (ops/affine_pl.py) is an
+// that ~100-line loop.  The device compute path (ops/affine_pl.py) is an
 // original band-relative / prefix-max design that shares none of this
 // structure.
 

@@ -18,7 +18,7 @@
 // Like sw_extend in align_eq.cpp (ksw.c port), its entire job is to be a
 // bit-exact oracle for the reference's tie behavior: the engine's device
 // kernels compute every gap's edit DISTANCE (ops/gap_dp_pallas.py, an
-// original TPU design), and this code reconstructs the PATH exactly as
+// original design), and this code reconstructs the PATH exactly as
 // edlib would — closing the band-edge tie-placement divergence (the one
 // output difference left at Gbp scale) and handling arbitrary gap sizes
 // via Hirschberg.  Sequences here are 0..4 codes (alphabet length 5);

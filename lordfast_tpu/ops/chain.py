@@ -177,11 +177,10 @@ def _dp_dtype(cfg):
         return jnp.float64
     if mode == "f32":
         return jnp.float32
-    # auto: f64 everywhere.  TPU has no native fp64 but XLA emulates it,
-    # and the chain DP is so small the cost is unmeasurable (~0.1 ms per
-    # batch either way); emulated-f64 scores match the reference's double
-    # DP to ~1e-13 relative (XLA's f64 log differs from libm by ~1e3 ulp)
-    # versus f32's 1e-7, which demonstrably flips score-tied windows.
+    # auto: f64 everywhere (native on the GPU and the CPU).  f64 scores
+    # match the reference's double DP up to the backend's f64 log versus
+    # libm, against f32's 1e-7, which demonstrably flips score-tied
+    # windows.
     return jnp.float64
 
 

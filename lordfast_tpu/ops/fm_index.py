@@ -11,7 +11,7 @@ Implements the anchoring stage of the pipeline — the equivalents of
                      hit lanes at once,
 - ``seed_anchors`` : the full seeding stage for a read batch.
 
-TPU-first redesign of the anchor search: the reference grows each anchor
+Device redesign of the anchor search: the reference grows each anchor
 to its maximal length by re-running the whole backward search per added
 base (src/BWT.cpp:333-342 — O(m^2) rank queries per anchor).  Because the
 indexed text is fwd+revcomp (bntseq.c:301-307), occurrences of a pattern P
@@ -249,8 +249,8 @@ def backward_ext(arrs, meta, k, l, c, axis=None):
     (bwt_count_exact inner step, src/BWT.cpp:255-258).
 
     The two rank queries are stacked into ONE occ call so the block
-    gathers issue as a single larger gather (the TPU analogue of bwa's
-    bwt_2occ fusion, lib/bwa/bwt.c:132-166)."""
+    gathers issue as a single larger gather (the device analogue of
+    bwa's bwt_2occ fusion, lib/bwa/bwt.c:132-166)."""
     both = occ(arrs, meta, jnp.stack([k - 1, l]), c[None], axis=axis)
     ok, ol = both[0], both[1]
     L2c = arrs["L2"][c].astype(jnp.asarray(k).dtype)
@@ -502,8 +502,7 @@ def _seed_anchors_impl(
         SMALL row gathers (9 consecutive text words, 9 consecutive read
         words); the per-position extraction is word unpacking (static
         shifts) + a 16-way static-slice select on the lane's in-word
-        offset — per-element take_along_axis gathers cost ~10x more on
-        TPU than the equivalent unpack-and-select."""
+        offset instead of per-element take_along_axis gathers."""
         p = sa_lookup(arrs, meta, k, one, axis=axis).astype(pdt)
         CH = 128
         NW = CH // 16 + 1  # 9 words cover any 128-char window
@@ -711,7 +710,7 @@ def _seed_anchors_impl(
     # Accepted anchors with occ > 0 have strictly increasing starts, so a
     # scatter of s at starts[s] followed by a running max gives the owner
     # of every slot directly — O(S + max_seeds) instead of the O(max_seeds
-    # log S) batched binary search (a 27 ms vmap'd while-loop on TPU).
+    # log S) batched binary search (a vmap'd while-loop).
     has_occ = accept & (occ_acc > 0)
     tgt = jnp.where(has_occ & (starts < max_seeds), starts, max_seeds)
     scat = jnp.full((B, max_seeds), -1, jnp.int32)

@@ -1,7 +1,7 @@
 """Batched device gap-DP: Myers bit-parallel NW / SHW edit-distance
 alignment with full path traceback, over padded gap buckets.
 
-This is the TPU equivalent of the reference's #1 hot loop — ``edlibAlign``
+This is the device equivalent of the reference's #1 hot loop — ``edlibAlign``
 called once per inter-seed gap and read end during chain stitching
 (reference: src/LordFAST.cpp:1833,1941,2168; Myers block update
 lib/edlib/edlib.cpp:335-470, NW/SHW drivers :475-870).  The host
@@ -247,7 +247,7 @@ def gather_gap_seqs_jit(pac_words, reads, desc, Q: int, T: int,
 
 def gather_gap_seqs(pac_words, reads, desc, Q: int, T: int, l_pac: int):
     """Device gather of the (qs, ql, ts, tl) padded code tensors for a gap
-    descriptor table — shared by the jnp kernel (gap_align) and the Pallas
+    descriptor table — feeds the jnp kernel (gap_align) and the Pallas
     kernel (ops/gap_dp_pallas.py).  See gap_align_from_desc for the
     descriptor semantics."""
     G = desc["q_read"].shape[0]

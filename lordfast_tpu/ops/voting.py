@@ -215,8 +215,8 @@ def _vote_windows_wide(seeds, read_lens, cfg, page=None):
 
     Scatter-free: after the per-read key sort, segment totals and the
     left/right-neighbor local-maximum checks are computed with prefix
-    scans (cumsum/cummax propagation within sorted segments) — scatters
-    of (B, 2*MS) elements are ~10x the cost of scans on TPU.
+    scans (cumsum/cummax propagation within sorted segments) instead of
+    scatters of (B, 2*MS) elements.
     """
     B, MS = seeds.t_pos.shape
     C = cfg.max_candidates

@@ -1,19 +1,21 @@
-"""Multi-host (DCN) scale-out: per-host read shards + SAM shard merge.
+"""Multi-process scale-out: per-process read shards + SAM shard merge.
 
 The reference is single-node, but its chunked driver loop is already the
 right decomposition for hosts: each ~100 MB chunk is independent
 (src/baseFAST.cpp:64-78), so hosts simply own disjoint chunk ids of the
 shared input (round-robin: chunk_id % num_processes == process_index) and
-write their own SAM shard — the DCN analogue of the reference's
-independent chunks, with no cross-host traffic on the mapping path
-(SURVEY.md §5.8).  An optional ordered merge concatenates the per-host
+write their own SAM shard — the analogue of the reference's independent
+chunks, with no cross-process traffic on the mapping path (SURVEY.md
+§5.8).  Each process opens one card of its host: a JAX process reserves
+most of a card's memory at start-up, so a second process on the same
+card would fail.  An optional ordered merge concatenates the per-host
 shards back into one SAM in input (chunk) order, which the reference
 cannot do (its output order is thread-nondeterministic).
 
-jax.distributed is only needed when a *global* mesh spans hosts (e.g.
-sharded-index mode over DCN) or for the end-of-run barrier before the
-rank-0 merge; ``maybe_init_distributed`` gates it behind explicit
-coordinator configuration.
+jax.distributed is only needed when a *global* mesh spans processes or
+for the end-of-run barrier before the rank-0 merge;
+``maybe_init_distributed`` gates it behind explicit coordinator
+configuration.
 """
 
 from __future__ import annotations
@@ -27,19 +29,23 @@ _DIST_INITIALIZED = False
 
 def maybe_init_distributed(coordinator: str, num_processes: int,
                            process_index: int) -> bool:
-    """jax.distributed.initialize gated behind explicit configuration;
-    returns True when the distributed runtime is (now) up."""
+    """Restrict this process to card ``process_index`` of its host and
+    start jax.distributed when a coordinator is given.  Must run before
+    the JAX backend starts.  Returns True when the distributed runtime
+    is (now) up."""
     global _DIST_INITIALIZED
-    if not coordinator:
-        return _DIST_INITIALIZED
     if _DIST_INITIALIZED:
         return True
     import jax
 
+    if not coordinator:
+        jax.config.update("jax_cuda_visible_devices", str(process_index))
+        return False
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_index,
+        local_device_ids=[process_index],
     )
     _DIST_INITIALIZED = True
     return True

@@ -1,7 +1,7 @@
-"""Sharded-index mode: the FM-index striped across the chips of a mesh.
+"""Sharded-index mode: the FM-index striped across the devices of a mesh.
 
 The replicated mode (parallel/mesh.py) keeps a full copy of the index in
-every chip's HBM — the TPU analogue of the reference's single in-process
+every device's memory — the analogue of the reference's single in-process
 ``bwaidx_t`` shared by all threads (src/BWT.cpp:32).  At GRCh38 scale the
 rank structures stop fitting comfortably (full-SA locate alone is
 8 B x 6.2e9 rows = 50 GB), so this module shards the three large arrays
@@ -17,7 +17,7 @@ row ids over the mesh axis, each shard answers the rows it owns with a
 local gather (zeros elsewhere), and a reduce-scatter (psum_scatter)
 returns to each device exactly its own queries' answers.  Reads stay
 data-parallel on the same axis, so each backward-search step costs one
-(D, n)-int all-gather plus one reduce-scatter over ICI — amortized over
+(D, n)-int all-gather plus one reduce-scatter over the interconnect — amortized over
 batch_reads x sampling_count lanes in lockstep.
 
 Small arrays stay replicated: L2 (40 B), contig tables, the 4^k k-mer

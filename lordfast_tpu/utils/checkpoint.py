@@ -3,7 +3,7 @@
 The reference has no mid-run checkpointing; its durable artifacts are the
 index files (written once, reloaded: src/BWT.cpp:117-133,159-187) and the
 independent ~100 MB read chunks (src/baseFAST.cpp:59,64-78), so a restart
-loses at most one chunk.  The TPU build keeps exactly that granularity
+loses at most one chunk.  This build keeps exactly that granularity
 (SURVEY.md §5.4): a sidecar ``<out>.progress`` JSON records the
 last-completed chunk id (per host, for multi-host runs) together with
 

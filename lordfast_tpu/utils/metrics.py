@@ -3,7 +3,7 @@
 The reference's observability is compile-time VERBOSITY log macros
 (src/Common.h:33-49, Makefile:3-8) plus wall/CPU timers around the
 load/chunk/map phases (src/Common.cpp:101-114, src/baseFAST.cpp:49-81).
-The TPU build replaces both with runtime-structured counters (SURVEY.md
+This build replaces both with runtime-structured counters (SURVEY.md
 §5.5): per-stage wall timers, per-batch device scalars (seeds found,
 candidate windows, fine-mode reads) reduced on device and fetched with the
 batch's host payload, and per-chunk host counters (splits, inversions,

@@ -1,5 +1,5 @@
-"""Batched Pallas affine extension (ops/affine_pl.py) vs the host scalar
-oracle (native/align_eq.cpp sw_extend via align.edlib_eq.ksw_extend2):
+"""Batched affine extension (ops/affine_pl.py, plain jnp/lax) vs the host
+scalar oracle (native/align_eq.cpp sw_extend via align.edlib_eq.ksw_extend2):
 score / qle / tle / gtle / gscore / max_off exact across random related
 and unrelated sequence pairs, both parameter sets the engine uses (clip:
 band 40, o=0/e=1; split: bands 100, o_del 8 / o_ins 4), z-drop and the
@@ -61,18 +61,19 @@ def _run_group(pairs, params, h0s, Qe, Te):
     res = affine_pl.extend_batch(
         qs, ts, Qe, Te, BW, w_max,
         qlen=qlen, tlen=tlen, match=np.full(G, 2, np.int32),
-        mismatch=np.full(G, 16, np.int32), interpret=True, **cols,
+        mismatch=np.full(G, 16, np.int32), **cols,
     )
     for g, (q, t) in enumerate(pairs):
         od, ed_, oi, ei, w, zd = params[g]
-        sc, qle, tle, gtle, gsc = ed.ksw_extend2(
-            q, t, MAT, od, ed_, oi, ei, w, 0, zd, int(h0s[g])
+        want = ed.ksw_extend2(
+            q, t, MAT, od, ed_, oi, ei, w, 0, zd, int(h0s[g]),
+            with_max_off=True,
         )
         got = (int(res.score[g]), int(res.qle[g]), int(res.tle[g]),
-               int(res.gtle[g]), int(res.gscore[g]))
-        assert got == (sc, qle, tle, gtle, gsc), (
+               int(res.gtle[g]), int(res.gscore[g]), int(res.max_off[g]))
+        assert got == want, (
             f"g={g} ql={len(q)} tl={len(t)} params={params[g]} "
-            f"h0={h0s[g]}: {got} != {(sc, qle, tle, gtle, gsc)}"
+            f"h0={h0s[g]}: {got} != {want}"
         )
 
 

@@ -1,9 +1,8 @@
-"""Device escalation offload (engine._escalation_pass + Pallas affine
-kernel + stitch.cpp esc table): the SAM output with the offload enabled
-must be byte-identical to the host-local escalation path on the golden
-fixture, which contains split / inversion / clip / garbage reads
-(tests/make_fixtures.py append_structured_reads).  Runs the affine
-kernel in interpreter mode on the CPU backend."""
+"""Device escalation offload (engine._escalation_pass + the jnp affine
+extension + stitch.cpp esc table): the SAM output with the offload
+enabled must be byte-identical to the host-local escalation path (the
+default) on the golden fixture, which contains split / inversion / clip /
+garbage reads (tests/make_fixtures.py append_structured_reads)."""
 
 import io
 from pathlib import Path

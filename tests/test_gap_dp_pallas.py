@@ -1,14 +1,15 @@
-"""Pallas Myers kernel (ops/gap_dp_pallas.py) vs the jnp reference kernel
+"""Myers gap kernel (ops/gap_dp_pallas.py) vs the jnp reference kernel
 and the host oracle: distances, SHW ends (incl. the negative-end
-artifact) and byte-identical move paths.  Runs the kernel in interpreter
-mode on the CPU backend (tests/conftest.py forces CPU); the same kernel
-is compiled by Mosaic on the real TPU (exercised by bench.py and the
-engine, and cross-checked in CI-on-TPU via .prof scripts)."""
+artifact) and byte-identical move paths.  Runs the kernel in the Pallas
+interpreter on the CPU backend (tests/conftest.py forces CPU); the same
+kernel compiled for the GPU is checked by chip_smoke.py's kernel phase
+(tests/test_gpu.py runs it where a card exists)."""
 
 import numpy as np
 import pytest
 
 from lordfast_tpu.align import edlib_eq as ed
+from lordfast_tpu.config import LordfastConfig
 from lordfast_tpu.ops import gap_dp
 from lordfast_tpu.ops import gap_dp_pallas as gp
 
@@ -87,29 +88,10 @@ def test_pallas_word_boundaries_vs_jnp(rng):
             )
 
 
-def test_pallas_tiled_path_vs_jnp(rng):
-    # Force the checkpoint/recompute tiled kernel (_make_kernel_tiled):
-    # Q=512, T=592 -> T*W = 9472 > 9216, _pick_tile -> TT=16.  This is
-    # the path the big gap buckets (e.g. (2048, 2176)) take on TPU; the
-    # non-tiled tests above never reach it.
-    Q, T = 512, 592
-    assert gp.supports(Q, T) and T * (Q // 32) > 9216
-    G = 8
-    pairs = []
-    for g in range(G):
-        ql_g = int(rng.integers(Q - 120, Q + 1))
-        tl_g = int(rng.integers(T - 120, T + 1))
-        q = rng.integers(0, 4, ql_g).astype(np.uint8)
-        # correlated target: mutate a copy so paths are nontrivial
-        t = q[:tl_g].copy() if tl_g <= ql_g else np.concatenate(
-            [q, rng.integers(0, 4, tl_g - ql_g).astype(np.uint8)]
-        )
-        nmut = max(1, int(0.1 * len(t)))
-        sites = rng.integers(0, len(t), nmut)
-        t[sites] = rng.integers(0, 4, nmut)
-        pairs.append((q, t))
-    modes = [g % 2 == 1 for g in range(G)]
-    dist, end, moves = _run(pairs, modes, Q, T)
+def _vs_jnp(pairs, modes, Q, T, with_path=True):
+    """Kernel (interpret mode) against gap_dp.gap_align on the same batch:
+    dist, end and (with_path) the decoded move paths, exactly."""
+    G = len(pairs)
     qs = np.zeros((G, Q), np.uint8)
     ts = np.zeros((G, T), np.uint8)
     ql = np.zeros(G, np.int32)
@@ -118,53 +100,69 @@ def test_pallas_tiled_path_vs_jnp(rng):
         qs[g, : len(q)] = q
         ts[g, : len(t)] = t
         ql[g], tl[g] = len(q), len(t)
-    ref = gap_dp.gap_align(qs, ql, ts, tl, np.asarray(modes, bool), Q, T)
+    shw = np.asarray(modes, bool)
+    ref = gap_dp.gap_align(qs, ql, ts, tl, shw, Q, T)
+    res = gp.gap_align_pl(qs, ql, ts, tl, shw, Q, T, with_path=with_path,
+                          interpret=True)
+    np.testing.assert_array_equal(np.asarray(res.dist), np.asarray(ref.dist))
+    np.testing.assert_array_equal(np.asarray(res.end), np.asarray(ref.end))
+    if not with_path:
+        assert res.lead is None and res.colcode is None
+        return
+    moves = gp.decode_col_moves(np.asarray(res.colcode),
+                                np.asarray(res.end), np.asarray(res.lead))
     ref_moves = gap_dp.unpack_moves(np.asarray(ref.moves_packed),
                                     np.asarray(ref.mlen))
-    np.testing.assert_array_equal(dist, np.asarray(ref.dist))
-    np.testing.assert_array_equal(end, np.asarray(ref.end))
     for g in range(G):
-        np.testing.assert_array_equal(
-            moves[g], ref_moves[g], err_msg=f"tiled gap {g} path mismatch"
-        )
+        np.testing.assert_array_equal(moves[g], ref_moves[g],
+                                      err_msg=f"gap {g} path mismatch")
 
 
-def test_pallas_tiled_checkpoint_stride(rng, monkeypatch):
-    # Hierarchical checkpointing (CPT > 1): shrink the VMEM budget so
-    # _pick_cpt chooses a stride > 1 at (512, 592) — the traceback then
-    # exercises the restore-and-refill-across-CPT-tiles path the big
-    # (4096, 4352) bucket uses on TPU.
-    monkeypatch.setattr(gp, "_VMEM_PLANE_BUDGET", 1_200_000)
-    Q, T = 512, 592
-    TT = gp._pick_tile(Q, T)
-    assert gp._pick_cpt(Q, T, TT) > 1
-    G = 8
+def _related(rng, Q, T, n_gaps):
     pairs = []
-    for g in range(G):
-        q = rng.integers(0, 4, int(rng.integers(Q - 90, Q + 1))).astype(
+    for g in range(n_gaps):
+        q = rng.integers(0, 4, int(rng.integers(Q - Q // 4, Q + 1))).astype(
             np.uint8)
         t = q.copy()
         sites = rng.integers(0, len(t), max(1, len(t) // 9))
         t[sites] = rng.integers(0, 4, len(sites))
-        pairs.append((q, t[: int(rng.integers(T - 90, T + 1))]))
-    modes = [g % 2 == 0 for g in range(G)]
-    dist, end, moves = _run(pairs, modes, Q, T)
-    qs = np.zeros((G, Q), np.uint8)
-    ts = np.zeros((G, T), np.uint8)
-    ql = np.zeros(G, np.int32)
-    tl = np.zeros(G, np.int32)
-    for g, (q, t) in enumerate(pairs):
-        qs[g, : len(q)] = q
-        ts[g, : len(t)] = t
-        ql[g], tl[g] = len(q), len(t)
-    ref = gap_dp.gap_align(qs, ql, ts, tl, np.asarray(modes, bool), Q, T)
-    ref_moves = gap_dp.unpack_moves(np.asarray(ref.moves_packed),
-                                    np.asarray(ref.mlen))
-    np.testing.assert_array_equal(dist, np.asarray(ref.dist))
-    np.testing.assert_array_equal(end, np.asarray(ref.end))
-    for g in range(G):
-        np.testing.assert_array_equal(moves[g], ref_moves[g],
-                                      err_msg=f"cpt gap {g}")
+        extra = rng.integers(0, 4, T - len(t)).astype(np.uint8)
+        t = np.concatenate([t, extra])[: int(rng.integers(T - T // 4,
+                                                          T + 1))]
+        pairs.append((q, t))
+    return pairs
+
+
+@pytest.mark.parametrize("Q,T", [(2048, 2176), (4096, 4352)])
+def test_pallas_wide_bucket_vs_jnp(rng, Q, T):
+    # the two widest configured gap buckets: W = Q/32 > UNROLL_W, so the
+    # kernel keeps Pv/Mv in its device-memory scratch and loops over words
+    assert (Q, T) in [b[:2] for b in LordfastConfig().gap_buckets]
+    assert Q // 32 > gp.UNROLL_W
+    pairs = _related(rng, Q, T, 3)
+    _vs_jnp(pairs, [False, True, True], Q, T)
+
+
+@pytest.mark.parametrize("G", [5, 33])
+def test_pallas_padding_and_no_path(rng, G):
+    # G not a multiple of the 32-lane block: the wrapper pads with (1, 1)
+    # dummies (33 -> two programs); the no-path variant returns the same
+    # dist/end without lead/colcode
+    pairs = _related(rng, 64, 96, G)
+    modes = [g % 3 == 0 for g in range(G)]
+    _vs_jnp(pairs, modes, 64, 96)
+    _vs_jnp(pairs, modes, 64, 96, with_path=False)
+
+
+@pytest.mark.parametrize("backend,want", [
+    ("gpu", "pallas"), ("cpu", "jnp"), ("rocm", None), ("metal", None)])
+def test_kernel_choice_per_backend(backend, want):
+    for Q, T, _ in LordfastConfig().gap_buckets:
+        if want is None:
+            with pytest.raises(ValueError):
+                gp.kernel_for(backend, Q, T)
+        else:
+            assert gp.kernel_for(backend, Q, T) == want
 
 
 def test_pallas_negative_end_artifact():
